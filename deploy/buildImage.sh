@@ -3,4 +3,4 @@
 # multi-stage C++ image; one stage suffices here).
 set -e
 cd "$(dirname "$0")/.."
-docker build -t opendlv-perception-vision-orbslam2-tpu:latest -f deploy/Dockerfile .
+docker build -t opendlv-perception-vision-orbslam2-jax:latest -f deploy/Dockerfile .

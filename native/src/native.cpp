@@ -1,4 +1,4 @@
-// TPU-native SLAM host runtime: the C++ pieces of the I/O plane.
+// SLAM host runtime: the C++ pieces of the I/O plane.
 //
 // Capability parity with the reference's native runtime layer:
 //  - PNG decode for the KITTI loader (reference uses cv::imread,

@@ -1,6 +1,6 @@
 """Test harness: run everything on a virtual 8-device CPU mesh.
 
-Multi-chip sharding is validated without TPU hardware via
+Multi-device sharding is validated without accelerator hardware via
 ``xla_force_host_platform_device_count`` (SURVEY.md section 4 test strategy).
 Must be set before JAX initializes, hence module scope here.
 """

@@ -1,10 +1,10 @@
-"""Worker process for the 2-process DCN-crossing mesh test.
+"""Worker process for the 2-process mesh test.
 
 Launched (twice) by tests/test_multiprocess.py.  Each process owns 4
 virtual CPU devices; ``jax.distributed`` joins them into one 8-device
-cluster and the ("dcn", "ici") mesh places the process boundary on the
-outer axis — the edge-sharded GBA's psums then cross exactly what DCN
-would cross on a 2-host TPU deployment (P8, BASELINE two-host target).
+cluster and the ("host", "local") mesh places the process boundary on the
+outer axis — the edge-sharded GBA's psums then cross exactly what the
+network between two hosts would carry (P8).
 """
 
 import os
@@ -29,8 +29,8 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from test_ba import CAM, _make_ba_problem
 
-    from opendlv_perception_vision_orbslam2_tpu.optim.ba import BAProblem
-    from opendlv_perception_vision_orbslam2_tpu.parallel.sharded_ba import (
+    from opendlv_perception_vision_orbslam2_jax.optim.ba import BAProblem
+    from opendlv_perception_vision_orbslam2_jax.parallel.sharded_ba import (
         EDGE_FIELDS,
         make_sharded_gba,
         pad_edges_to_multiple,
@@ -45,11 +45,11 @@ def main():
     prob = pad_edges_to_multiple(prob, 8)
 
     # outer mesh axis = process boundary (jax.devices() orders by process)
-    mesh = Mesh(np.array(jax.devices()).reshape(2, 4), ("dcn", "ici"))
+    mesh = Mesh(np.array(jax.devices()).reshape(2, 4), ("host", "local"))
 
     def put(name, arr):
         arr = np.asarray(arr)
-        spec = P(("dcn", "ici")) if name in EDGE_FIELDS else P()
+        spec = P(("host", "local")) if name in EDGE_FIELDS else P()
         sh = NamedSharding(mesh, spec)
         return jax.make_array_from_callback(arr.shape, sh,
                                             lambda idx: arr[idx])
@@ -57,7 +57,7 @@ def main():
     prob_s = BAProblem(
         **{n: put(n, getattr(prob, n)) for n in BAProblem._fields}
     )
-    run = make_sharded_gba(mesh, ("dcn", "ici"), **CAM, n_outer=8,
+    run = make_sharded_gba(mesh, ("host", "local"), **CAM, n_outer=8,
                            cg_iters=30)
     T_sh, pts_sh, cost = run(prob_s)
     # outputs replicate (out_specs P()), so shard 0 holds the full arrays

@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from opendlv_perception_vision_orbslam2_tpu.ops import lie
-from opendlv_perception_vision_orbslam2_tpu.optim.ba import BAProblem, bundle_adjust
+from opendlv_perception_vision_orbslam2_jax.ops import lie
+from opendlv_perception_vision_orbslam2_jax.optim.ba import BAProblem, bundle_adjust
 
 CAM = dict(fx=320.0, fy=320.0, cx=256.0, cy=128.0, bf=160.0)
 
@@ -169,7 +169,7 @@ def test_ba_no_behind_camera_escape():
 def _make_grid_problem(seed=0, kw=6, ko=4, n_pts=256, noise_px=0.4,
                        pose_noise=0.03, pt_noise=0.10):
     """Dense-grid BA problem (observation-table layout) vs ground truth."""
-    from opendlv_perception_vision_orbslam2_tpu.optim.ba_grid import (
+    from opendlv_perception_vision_orbslam2_jax.optim.ba_grid import (
         GridBAProblem,
     )
 
@@ -249,7 +249,7 @@ def test_bundle_adjust_grid_converges_to_ground_truth():
     """The scalarized grid solver recovers poses and points from a
     perturbed initialization (same accuracy contract as the edge-list
     solver's test above)."""
-    from opendlv_perception_vision_orbslam2_tpu.optim.ba_grid import (
+    from opendlv_perception_vision_orbslam2_jax.optim.ba_grid import (
         bundle_adjust_grid,
     )
 
@@ -275,7 +275,7 @@ def test_bundle_adjust_grid_converges_to_ground_truth():
 
 def test_bundle_adjust_grid_respects_masks():
     """Frozen poses must not move; invalid points must not move."""
-    from opendlv_perception_vision_orbslam2_tpu.optim.ba_grid import (
+    from opendlv_perception_vision_orbslam2_jax.optim.ba_grid import (
         bundle_adjust_grid,
     )
 

@@ -1,6 +1,6 @@
 """Config parsing parity with the reference CLI surface."""
 
-from opendlv_perception_vision_orbslam2_tpu.utils.config import (
+from opendlv_perception_vision_orbslam2_jax.utils.config import (
     SystemConfig,
     config_from_flags,
     parse_flags,

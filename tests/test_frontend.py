@@ -9,16 +9,16 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from opendlv_perception_vision_orbslam2_tpu.models import frontend
-from opendlv_perception_vision_orbslam2_tpu.models.extractor import (
+from opendlv_perception_vision_orbslam2_jax.models import frontend
+from opendlv_perception_vision_orbslam2_jax.models.extractor import (
     extract_features,
     per_level_budgets,
 )
-from opendlv_perception_vision_orbslam2_tpu.ops import fast as fast_ops
-from opendlv_perception_vision_orbslam2_tpu.ops import hamming as ham
-from opendlv_perception_vision_orbslam2_tpu.ops import orb as orb_ops
-from opendlv_perception_vision_orbslam2_tpu.utils import synthetic
-from opendlv_perception_vision_orbslam2_tpu.utils.config import (
+from opendlv_perception_vision_orbslam2_jax.ops import fast as fast_ops
+from opendlv_perception_vision_orbslam2_jax.ops import hamming as ham
+from opendlv_perception_vision_orbslam2_jax.ops import orb as orb_ops
+from opendlv_perception_vision_orbslam2_jax.utils import synthetic
+from opendlv_perception_vision_orbslam2_jax.utils.config import (
     CameraConfig,
     OrbConfig,
     SystemConfig,
@@ -78,7 +78,7 @@ def test_extract_features_finds_sprites(world_frame):
     n_valid = int(jnp.sum(feats.valid))
     assert n_valid > 100
     # keypoints must be near rendered sprite projections
-    from opendlv_perception_vision_orbslam2_tpu.ops import lie
+    from opendlv_perception_vision_orbslam2_jax.ops import lie
 
     uv = np.asarray(
         lie.project(world.points, cfg.camera.fx, cfg.camera.fy,
@@ -143,7 +143,7 @@ def test_stereo_depth_accuracy(world_frame):
     assert has_depth.sum() > 50
 
     # ground truth: nearest projected world point
-    from opendlv_perception_vision_orbslam2_tpu.ops import lie
+    from opendlv_perception_vision_orbslam2_jax.ops import lie
 
     uv = np.asarray(lie.project(world.points, cam.fx, cam.fy, cam.cx, cam.cy))
     z_gt = np.asarray(world.points[:, 2])
@@ -158,7 +158,7 @@ def test_stereo_depth_accuracy(world_frame):
 
 
 def test_undistort_points_inverts_distortion():
-    from opendlv_perception_vision_orbslam2_tpu.ops import undistort as ud
+    from opendlv_perception_vision_orbslam2_jax.ops import undistort as ud
 
     rng = np.random.default_rng(3)
     fx = fy = 400.0
@@ -176,7 +176,7 @@ def test_undistort_points_inverts_distortion():
 
 
 def test_remap_identity_grid():
-    from opendlv_perception_vision_orbslam2_tpu.ops import undistort as ud
+    from opendlv_perception_vision_orbslam2_jax.ops import undistort as ud
 
     rng = np.random.default_rng(4)
     img = jnp.asarray(rng.uniform(0, 255, (32, 48)).astype(np.float32))

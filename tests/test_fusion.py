@@ -4,8 +4,8 @@ src/orbmatcher.cpp:903-933 uses the 3-DoF chi2 at 7.8 for stereo features)."""
 import numpy as np
 import jax.numpy as jnp
 
-from opendlv_perception_vision_orbslam2_tpu.models import map_state as ms
-from opendlv_perception_vision_orbslam2_tpu.models.fusion import fuse_into_keyframe
+from opendlv_perception_vision_orbslam2_jax.models import map_state as ms
+from opendlv_perception_vision_orbslam2_jax.models.fusion import fuse_into_keyframe
 from tests.test_map import CAM, CFG, F, _pose, _synth_frame, _world
 
 

@@ -3,9 +3,9 @@
 import numpy as np
 import jax.numpy as jnp
 
-from opendlv_perception_vision_orbslam2_tpu.optim.ba import bundle_adjust
-from opendlv_perception_vision_orbslam2_tpu.optim.gba import global_bundle_adjust
-from opendlv_perception_vision_orbslam2_tpu.ops import lie
+from opendlv_perception_vision_orbslam2_jax.optim.ba import bundle_adjust
+from opendlv_perception_vision_orbslam2_jax.optim.gba import global_bundle_adjust
+from opendlv_perception_vision_orbslam2_jax.ops import lie
 
 from test_ba import CAM, _make_ba_problem, _pose_errors
 
@@ -38,7 +38,7 @@ def test_gba_large_problem_smoke():
         [rng.uniform(-30, 30, n_pts), rng.uniform(-5, 5, n_pts),
          rng.uniform(5, 60, n_pts)], axis=-1,
     ).astype(np.float32)
-    from opendlv_perception_vision_orbslam2_tpu.optim.ba import BAProblem
+    from opendlv_perception_vision_orbslam2_jax.optim.ba import BAProblem
 
     T_gt, e_kf, e_pt, e_uv, e_ur = [], [], [], [], []
     for k in range(n_poses):
@@ -101,11 +101,11 @@ def test_incremental_gba_chunks_and_merge():
     version of the reference's detached abortable GBA thread
     (reference: src/loopclosing.cpp:576-580, 645-750)."""
     from test_loop_closing import CFG, F as FCAP, _frame_for, _gt_pose, _ring_world
-    from opendlv_perception_vision_orbslam2_tpu.models import map_state as ms
-    from opendlv_perception_vision_orbslam2_tpu.models.global_ba import (
+    from opendlv_perception_vision_orbslam2_jax.models import map_state as ms
+    from opendlv_perception_vision_orbslam2_jax.models.global_ba import (
         IncrementalGBA,
     )
-    from opendlv_perception_vision_orbslam2_tpu.ops import lie as _lie
+    from opendlv_perception_vision_orbslam2_jax.ops import lie as _lie
 
     pts, descs = _ring_world()
     rng = np.random.default_rng(3)
@@ -134,7 +134,7 @@ def test_incremental_gba_chunks_and_merge():
     gba = IncrementalGBA(m, CFG, n_outer_total=8, cg_iters=30, sharded=False)
     # equivalence target: the one-shot solve on the same snapshot
     cam = CFG.camera
-    from opendlv_perception_vision_orbslam2_tpu.models.global_ba import (
+    from opendlv_perception_vision_orbslam2_jax.models.global_ba import (
         extract_global_ba,
     )
     prob_ref = extract_global_ba(m, CFG.orb.scale_factor)

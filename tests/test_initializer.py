@@ -5,10 +5,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from opendlv_perception_vision_orbslam2_tpu.models.initializer import (
+from opendlv_perception_vision_orbslam2_jax.models.initializer import (
     initialize_two_view,
 )
-from opendlv_perception_vision_orbslam2_tpu.ops import lie
+from opendlv_perception_vision_orbslam2_jax.ops import lie
 
 CAM = dict(fx=320.0, fy=320.0, cx=256.0, cy=128.0)
 
@@ -107,7 +107,7 @@ def test_faugeras_decomposition_contains_true_motion():
     for an exact plane-induced homography H = K (R + t n^T / d) K^-1 the
     true (R, t/||t||) must appear among the 8 candidates (ReconstructH,
     reference: src/orbinitializer.cpp:573-730)."""
-    from opendlv_perception_vision_orbslam2_tpu.models.initializer import (
+    from opendlv_perception_vision_orbslam2_jax.models.initializer import (
         decompose_homography,
     )
 

@@ -8,10 +8,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from opendlv_perception_vision_orbslam2_tpu.io import messages as msg
-from opendlv_perception_vision_orbslam2_tpu.io.checkpoint import load_map, save_map
-from opendlv_perception_vision_orbslam2_tpu.models.map_state import empty_map
-from opendlv_perception_vision_orbslam2_tpu.utils import wgs84
+from opendlv_perception_vision_orbslam2_jax.io import messages as msg
+from opendlv_perception_vision_orbslam2_jax.io.checkpoint import load_map, save_map
+from opendlv_perception_vision_orbslam2_jax.models.map_state import empty_map
+from opendlv_perception_vision_orbslam2_jax.utils import wgs84
 
 
 def _decode_varint(data, pos):
@@ -117,12 +117,12 @@ def test_kitti_runner_on_generated_sequence(tmp_path):
     and run the VO engine over it through the real loader path."""
     from PIL import Image
 
-    from opendlv_perception_vision_orbslam2_tpu.io.kitti import KittiRunner
-    from opendlv_perception_vision_orbslam2_tpu.models.tracking import (
+    from opendlv_perception_vision_orbslam2_jax.io.kitti import KittiRunner
+    from opendlv_perception_vision_orbslam2_jax.models.tracking import (
         StereoVisualOdometry,
     )
-    from opendlv_perception_vision_orbslam2_tpu.utils import synthetic
-    from opendlv_perception_vision_orbslam2_tpu.utils.config import (
+    from opendlv_perception_vision_orbslam2_jax.utils import synthetic
+    from opendlv_perception_vision_orbslam2_jax.utils.config import (
         CameraConfig,
         OrbConfig,
         SystemConfig,
@@ -158,17 +158,17 @@ def test_kitti_runner_on_generated_sequence(tmp_path):
 
 
 def test_cli_usage_exit():
-    from opendlv_perception_vision_orbslam2_tpu.__main__ import main
+    from opendlv_perception_vision_orbslam2_jax.__main__ import main
 
     assert main([]) == 1  # missing required flags -> usage
 
 
-def test_native_png_decoder_if_built():
-    from opendlv_perception_vision_orbslam2_tpu.native import png_native
+def test_native_png_decoder_if_built(tmp_path):
+    from opendlv_perception_vision_orbslam2_jax.native import png_native
     from PIL import Image
 
     arr = np.arange(64 * 48, dtype=np.uint8).reshape(48, 64) % 251
-    p = "/tmp/orbslam2_tpu_png_test.png"
+    p = str(tmp_path / "png_test.png")
     Image.fromarray(arr, "L").save(p)
     out = png_native.decode_gray(p)
     if out is None:
@@ -182,9 +182,9 @@ def test_cli_kitti_mode_end_to_end(tmp_path):
     (runKitti -> Track -> dumps, reference: src/selflocalization.cpp:65-99)."""
     from PIL import Image
 
-    from opendlv_perception_vision_orbslam2_tpu.__main__ import main
-    from opendlv_perception_vision_orbslam2_tpu.utils import synthetic
-    from opendlv_perception_vision_orbslam2_tpu.utils.config import (
+    from opendlv_perception_vision_orbslam2_jax.__main__ import main
+    from opendlv_perception_vision_orbslam2_jax.utils import synthetic
+    from opendlv_perception_vision_orbslam2_jax.utils.config import (
         CameraConfig,
         OrbConfig,
         SystemConfig,

@@ -4,7 +4,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from opendlv_perception_vision_orbslam2_tpu.ops import lie
+from opendlv_perception_vision_orbslam2_jax.ops import lie
 
 
 def random_rotation(rng):

@@ -16,10 +16,10 @@ re-chaining), so an accepted loop closure must actually help, not hurt.
 import numpy as np
 import pytest
 
-from opendlv_perception_vision_orbslam2_tpu.models.slam import StereoSlam
-from opendlv_perception_vision_orbslam2_tpu.models.mono_slam import MonocularSlam
-from opendlv_perception_vision_orbslam2_tpu.utils import synthetic, trajectory
-from opendlv_perception_vision_orbslam2_tpu.utils.config import (
+from opendlv_perception_vision_orbslam2_jax.models.slam import StereoSlam
+from opendlv_perception_vision_orbslam2_jax.models.mono_slam import MonocularSlam
+from opendlv_perception_vision_orbslam2_jax.utils import synthetic, trajectory
+from opendlv_perception_vision_orbslam2_jax.utils.config import (
     CameraConfig,
     OrbConfig,
     SystemConfig,

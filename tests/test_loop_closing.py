@@ -6,13 +6,13 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from opendlv_perception_vision_orbslam2_tpu.models import map_state as ms
-from opendlv_perception_vision_orbslam2_tpu.models import vocabulary as voc
-from opendlv_perception_vision_orbslam2_tpu.models.frame import FrameState, empty_features
-from opendlv_perception_vision_orbslam2_tpu.models.kfdb import add_keyframe, empty_kfdb
-from opendlv_perception_vision_orbslam2_tpu.models.loop_closing import LoopCloser
-from opendlv_perception_vision_orbslam2_tpu.ops import lie
-from opendlv_perception_vision_orbslam2_tpu.utils.config import (
+from opendlv_perception_vision_orbslam2_jax.models import map_state as ms
+from opendlv_perception_vision_orbslam2_jax.models import vocabulary as voc
+from opendlv_perception_vision_orbslam2_jax.models.frame import FrameState, empty_features
+from opendlv_perception_vision_orbslam2_jax.models.kfdb import add_keyframe, empty_kfdb
+from opendlv_perception_vision_orbslam2_jax.models.loop_closing import LoopCloser
+from opendlv_perception_vision_orbslam2_jax.ops import lie
+from opendlv_perception_vision_orbslam2_jax.utils.config import (
     CameraConfig,
     OrbConfig,
     SystemConfig,
@@ -155,7 +155,7 @@ def test_mono_sim3_pose_graph_recovers_scale_drift():
     measured relative scale (OptimizeEssentialGraph Sim3 vertices,
     reference: src/orboptimizer.cpp:799-1061), recovering the end-of-loop
     scale to <2%."""
-    from opendlv_perception_vision_orbslam2_tpu.optim.pose_graph import (
+    from opendlv_perception_vision_orbslam2_jax.optim.pose_graph import (
         PoseGraphProblem,
         optimize_pose_graph,
     )
@@ -219,7 +219,7 @@ def test_loop_rejects_distant_dissimilar_geometry():
     """Two keyframes on opposite sides of the ring (appearance overlap
     impossible) must NOT pass the Sim3 + region-projection gates —
     guards the >=40-total acceptance (reference: src/loopclosing.cpp:391)."""
-    from opendlv_perception_vision_orbslam2_tpu.models.loop_closing import (
+    from opendlv_perception_vision_orbslam2_jax.models.loop_closing import (
         compute_loop_transform,
     )
 
@@ -246,7 +246,7 @@ def test_persistent_loop_edges_protected_and_reused():
     essential-graph builds, and protect their anchor keyframes from
     capacity eviction (reference keeps loop edges on keyframes forever,
     src/orbkeyframe.cpp:458-470)."""
-    from opendlv_perception_vision_orbslam2_tpu.models.loop_closing import (
+    from opendlv_perception_vision_orbslam2_jax.models.loop_closing import (
         build_essential_edges,
     )
 

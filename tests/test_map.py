@@ -3,14 +3,14 @@
 import numpy as np
 import jax.numpy as jnp
 
-from opendlv_perception_vision_orbslam2_tpu.models import map_state as ms
-from opendlv_perception_vision_orbslam2_tpu.models.frame import FrameState, empty_features
-from opendlv_perception_vision_orbslam2_tpu.models.local_mapping import (
+from opendlv_perception_vision_orbslam2_jax.models import map_state as ms
+from opendlv_perception_vision_orbslam2_jax.models.frame import FrameState, empty_features
+from opendlv_perception_vision_orbslam2_jax.models.local_mapping import (
     extract_local_ba,
     local_mapping_step,
 )
-from opendlv_perception_vision_orbslam2_tpu.ops import lie
-from opendlv_perception_vision_orbslam2_tpu.utils.config import (
+from opendlv_perception_vision_orbslam2_jax.ops import lie
+from opendlv_perception_vision_orbslam2_jax.utils.config import (
     CameraConfig,
     OrbConfig,
     SystemConfig,

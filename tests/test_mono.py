@@ -5,14 +5,14 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from opendlv_perception_vision_orbslam2_tpu.models import map_state as ms
-from opendlv_perception_vision_orbslam2_tpu.models.triangulation import (
+from opendlv_perception_vision_orbslam2_jax.models import map_state as ms
+from opendlv_perception_vision_orbslam2_jax.models.triangulation import (
     triangulate_with_neighbor,
 )
-from opendlv_perception_vision_orbslam2_tpu.models.mono_slam import MonocularSlam
-from opendlv_perception_vision_orbslam2_tpu.models.frame import FrameState, empty_features
-from opendlv_perception_vision_orbslam2_tpu.utils import synthetic, trajectory
-from opendlv_perception_vision_orbslam2_tpu.utils.config import (
+from opendlv_perception_vision_orbslam2_jax.models.mono_slam import MonocularSlam
+from opendlv_perception_vision_orbslam2_jax.models.frame import FrameState, empty_features
+from opendlv_perception_vision_orbslam2_jax.utils import synthetic, trajectory
+from opendlv_perception_vision_orbslam2_jax.utils.config import (
     CameraConfig,
     OrbConfig,
     SystemConfig,

@@ -5,12 +5,12 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from opendlv_perception_vision_orbslam2_tpu.ops import lie
-from opendlv_perception_vision_orbslam2_tpu.parallel.sharded_pose import (
+from opendlv_perception_vision_orbslam2_jax.ops import lie
+from opendlv_perception_vision_orbslam2_jax.parallel.sharded_pose import (
     make_sharded_pose_optimizer,
     pad_obs_to_multiple,
 )
-from opendlv_perception_vision_orbslam2_tpu.optim.pose_opt import PoseObs
+from opendlv_perception_vision_orbslam2_jax.optim.pose_opt import PoseObs
 
 CAM = dict(fx=320.0, fy=320.0, cx=256.0, cy=128.0, bf=160.0)
 
@@ -68,10 +68,10 @@ def test_sharded_gba_matches_single_device():
     import sys, os
     sys.path.insert(0, os.path.dirname(__file__))
     from test_ba import CAM as BACAM, _make_ba_problem, _pose_errors
-    from opendlv_perception_vision_orbslam2_tpu.optim.gba import (
+    from opendlv_perception_vision_orbslam2_jax.optim.gba import (
         global_bundle_adjust,
     )
-    from opendlv_perception_vision_orbslam2_tpu.parallel.sharded_ba import (
+    from opendlv_perception_vision_orbslam2_jax.parallel.sharded_ba import (
         make_sharded_gba,
         pad_edges_to_multiple,
         shard_problem,
@@ -103,17 +103,17 @@ def test_sharded_incremental_gba_production_path():
     (VERDICT r3 task 2)."""
     import dataclasses
 
-    from opendlv_perception_vision_orbslam2_tpu.models.global_ba import (
+    from opendlv_perception_vision_orbslam2_jax.models.global_ba import (
         IncrementalGBA,
         extract_global_ba,
     )
-    from opendlv_perception_vision_orbslam2_tpu.models.slam import StereoSlam
-    from opendlv_perception_vision_orbslam2_tpu.optim.gba import (
+    from opendlv_perception_vision_orbslam2_jax.models.slam import StereoSlam
+    from opendlv_perception_vision_orbslam2_jax.optim.gba import (
         gba_init_carry,
         global_bundle_adjust_chunk,
     )
-    from opendlv_perception_vision_orbslam2_tpu.utils import synthetic
-    from opendlv_perception_vision_orbslam2_tpu.utils.config import (
+    from opendlv_perception_vision_orbslam2_jax.utils import synthetic
+    from opendlv_perception_vision_orbslam2_jax.utils.config import (
         CameraConfig,
         OrbConfig,
         SystemConfig,

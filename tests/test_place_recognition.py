@@ -4,12 +4,12 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from opendlv_perception_vision_orbslam2_tpu.models import vocabulary as voc
-from opendlv_perception_vision_orbslam2_tpu.models import kfdb as kfdb_mod
-from opendlv_perception_vision_orbslam2_tpu.ops import matching
-from opendlv_perception_vision_orbslam2_tpu.ops.horn import horn_align
-from opendlv_perception_vision_orbslam2_tpu.optim.pnp import pnp_ransac
-from opendlv_perception_vision_orbslam2_tpu.ops import lie
+from opendlv_perception_vision_orbslam2_jax.models import vocabulary as voc
+from opendlv_perception_vision_orbslam2_jax.models import kfdb as kfdb_mod
+from opendlv_perception_vision_orbslam2_jax.ops import matching
+from opendlv_perception_vision_orbslam2_jax.ops.horn import horn_align
+from opendlv_perception_vision_orbslam2_jax.optim.pnp import pnp_ransac
+from opendlv_perception_vision_orbslam2_jax.ops import lie
 
 
 def _random_descs(m, seed=0):

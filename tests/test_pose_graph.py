@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from opendlv_perception_vision_orbslam2_tpu.ops import lie
-from opendlv_perception_vision_orbslam2_tpu.optim.pose_graph import (
+from opendlv_perception_vision_orbslam2_jax.ops import lie
+from opendlv_perception_vision_orbslam2_jax.optim.pose_graph import (
     PoseGraphProblem,
     optimize_pose_graph,
     relative_pose,

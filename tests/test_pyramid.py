@@ -9,8 +9,8 @@ reference: src/orbextractor.cpp:654-678) to f32 rounding.
 import jax.numpy as jnp
 import numpy as np
 
-from opendlv_perception_vision_orbslam2_tpu.ops import image as image_ops
-from opendlv_perception_vision_orbslam2_tpu.ops import resample
+from opendlv_perception_vision_orbslam2_jax.ops import image as image_ops
+from opendlv_perception_vision_orbslam2_jax.ops import resample
 
 
 def _chained(img, n_levels, scale):

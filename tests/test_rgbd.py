@@ -11,10 +11,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from opendlv_perception_vision_orbslam2_tpu.models.frontend import process_rgbd
-from opendlv_perception_vision_orbslam2_tpu.models.slam import StereoSlam
-from opendlv_perception_vision_orbslam2_tpu.utils import synthetic, trajectory
-from opendlv_perception_vision_orbslam2_tpu.utils.config import (
+from opendlv_perception_vision_orbslam2_jax.models.frontend import process_rgbd
+from opendlv_perception_vision_orbslam2_jax.models.slam import StereoSlam
+from opendlv_perception_vision_orbslam2_jax.utils import synthetic, trajectory
+from opendlv_perception_vision_orbslam2_jax.utils.config import (
     CameraConfig,
     OrbConfig,
     SystemConfig,

@@ -5,9 +5,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from opendlv_perception_vision_orbslam2_tpu.models.slam import StereoSlam
-from opendlv_perception_vision_orbslam2_tpu.utils import synthetic, trajectory
-from opendlv_perception_vision_orbslam2_tpu.utils.config import (
+from opendlv_perception_vision_orbslam2_jax.models.slam import StereoSlam
+from opendlv_perception_vision_orbslam2_jax.utils import synthetic, trajectory
+from opendlv_perception_vision_orbslam2_jax.utils.config import (
     CameraConfig,
     OrbConfig,
     SystemConfig,
@@ -20,7 +20,7 @@ def _config():
                             bf=160.0, width=512, height=256, fps=10.0),
         orb=OrbConfig(n_features=600, max_keypoints=1024, n_levels=4),
         tracking=__import__(
-            "opendlv_perception_vision_orbslam2_tpu.utils.config",
+            "opendlv_perception_vision_orbslam2_jax.utils.config",
             fromlist=["TrackingConfig"],
         ).TrackingConfig(max_frames=5, th_depth=35.0),
         max_keyframes=32,
@@ -95,7 +95,7 @@ def test_two_lap_loop_closures_with_capacity_churn():
                             bf=160.0, width=512, height=256, fps=10.0),
         orb=OrbConfig(n_features=600, max_keypoints=1024, n_levels=4),
         tracking=__import__(
-            "opendlv_perception_vision_orbslam2_tpu.utils.config",
+            "opendlv_perception_vision_orbslam2_jax.utils.config",
             fromlist=["TrackingConfig"],
         ).TrackingConfig(max_frames=5),
         max_keyframes=64,

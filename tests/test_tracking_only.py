@@ -5,9 +5,9 @@ insertion, VO carries the pose off-map with per-frame relocalization."""
 import numpy as np
 import jax.numpy as jnp
 
-from opendlv_perception_vision_orbslam2_tpu.models.slam import StereoSlam
-from opendlv_perception_vision_orbslam2_tpu.utils import synthetic, trajectory
-from opendlv_perception_vision_orbslam2_tpu.utils.config import (
+from opendlv_perception_vision_orbslam2_jax.models.slam import StereoSlam
+from opendlv_perception_vision_orbslam2_jax.utils import synthetic, trajectory
+from opendlv_perception_vision_orbslam2_jax.utils.config import (
     CameraConfig,
     OrbConfig,
     SystemConfig,

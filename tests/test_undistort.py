@@ -7,10 +7,10 @@ import dataclasses
 import numpy as np
 import jax.numpy as jnp
 
-from opendlv_perception_vision_orbslam2_tpu.models.frontend import process_mono
-from opendlv_perception_vision_orbslam2_tpu.ops import undistort as und
-from opendlv_perception_vision_orbslam2_tpu.utils import synthetic
-from opendlv_perception_vision_orbslam2_tpu.utils.config import (
+from opendlv_perception_vision_orbslam2_jax.models.frontend import process_mono
+from opendlv_perception_vision_orbslam2_jax.ops import undistort as und
+from opendlv_perception_vision_orbslam2_jax.utils import synthetic
+from opendlv_perception_vision_orbslam2_jax.utils.config import (
     CameraConfig,
     OrbConfig,
     SystemConfig,

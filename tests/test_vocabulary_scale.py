@@ -12,7 +12,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from opendlv_perception_vision_orbslam2_tpu.models import vocabulary as voc
+from opendlv_perception_vision_orbslam2_jax.models import vocabulary as voc
 
 
 def _random_descs(n, rng):

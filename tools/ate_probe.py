@@ -3,11 +3,11 @@ for quick accuracy iteration without pytest overhead."""
 
 import numpy as np
 
-from opendlv_perception_vision_orbslam2_tpu.models.tracking import (
+from opendlv_perception_vision_orbslam2_jax.models.tracking import (
     StereoVisualOdometry,
 )
-from opendlv_perception_vision_orbslam2_tpu.utils import synthetic, trajectory
-from opendlv_perception_vision_orbslam2_tpu.utils.config import (
+from opendlv_perception_vision_orbslam2_jax.utils import synthetic, trajectory
+from opendlv_perception_vision_orbslam2_jax.utils.config import (
     CameraConfig,
     OrbConfig,
     SystemConfig,

@@ -12,13 +12,13 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from opendlv_perception_vision_orbslam2_tpu.models import extractor
-from opendlv_perception_vision_orbslam2_tpu.models.frontend import process_stereo
-from opendlv_perception_vision_orbslam2_tpu.ops import fast as fast_ops
-from opendlv_perception_vision_orbslam2_tpu.ops import image as image_ops
-from opendlv_perception_vision_orbslam2_tpu.ops import orb as orb_ops
-from opendlv_perception_vision_orbslam2_tpu.utils import synthetic
-from opendlv_perception_vision_orbslam2_tpu.utils.config import SystemConfig
+from opendlv_perception_vision_orbslam2_jax.models import extractor
+from opendlv_perception_vision_orbslam2_jax.models.frontend import process_stereo
+from opendlv_perception_vision_orbslam2_jax.ops import fast as fast_ops
+from opendlv_perception_vision_orbslam2_jax.ops import image as image_ops
+from opendlv_perception_vision_orbslam2_jax.ops import orb as orb_ops
+from opendlv_perception_vision_orbslam2_jax.utils import synthetic
+from opendlv_perception_vision_orbslam2_jax.utils.config import SystemConfig
 
 
 def hard_sync(x):

@@ -4,9 +4,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from opendlv_perception_vision_orbslam2_tpu.models import slam as slam_mod
-from opendlv_perception_vision_orbslam2_tpu.utils import synthetic
-from opendlv_perception_vision_orbslam2_tpu.utils.config import SystemConfig
+from opendlv_perception_vision_orbslam2_jax.models import slam as slam_mod
+from opendlv_perception_vision_orbslam2_jax.utils import synthetic
+from opendlv_perception_vision_orbslam2_jax.utils.config import SystemConfig
 
 cfg = SystemConfig()
 n = int(sys.argv[1]) if len(sys.argv) > 1 else 20

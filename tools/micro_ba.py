@@ -1,10 +1,10 @@
-"""Microbench: bundle_adjust wall time vs edge/point capacity on TPU."""
+"""Microbench: bundle_adjust wall time vs edge/point capacity on the device."""
 import time
 import numpy as np
 import jax
 import jax.numpy as jnp
 
-from opendlv_perception_vision_orbslam2_tpu.optim.ba import BAProblem, bundle_adjust
+from opendlv_perception_vision_orbslam2_jax.optim.ba import BAProblem, bundle_adjust
 
 CAM = dict(fx=718.856, fy=718.856, cx=607.19, cy=185.22, bf=386.1448)
 rng = np.random.default_rng(0)

@@ -7,9 +7,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from opendlv_perception_vision_orbslam2_tpu.ops import fast as fast_ops
-from opendlv_perception_vision_orbslam2_tpu.ops import image as image_ops
-from opendlv_perception_vision_orbslam2_tpu.ops import resample
+from opendlv_perception_vision_orbslam2_jax.ops import fast as fast_ops
+from opendlv_perception_vision_orbslam2_jax.ops import image as image_ops
+from opendlv_perception_vision_orbslam2_jax.ops import resample
 
 
 def hard_sync(x):

@@ -1,22 +1,21 @@
-"""Bisect the grid-LBA cost on TPU: iteration scaling + small-solve cost."""
+"""Bisect the grid-LBA cost on the device: iteration scaling + small-solve cost."""
 import time
 import functools
 import numpy as np
 import jax
 import jax.numpy as jnp
 
-try:
-    jax.config.update("jax_compilation_cache_dir",
-                      "/root/.orbslam2_tpu_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-except Exception:
-    pass
+from opendlv_perception_vision_orbslam2_jax.utils.compile_cache import (  # noqa: E402
+    enable_compile_cache,
+)
 
-from opendlv_perception_vision_orbslam2_tpu.models import slam as slam_mod
-from opendlv_perception_vision_orbslam2_tpu.models import local_mapping as lm
-from opendlv_perception_vision_orbslam2_tpu.optim.ba_grid import bundle_adjust_grid
-from opendlv_perception_vision_orbslam2_tpu.utils import synthetic
-from opendlv_perception_vision_orbslam2_tpu.utils.config import SystemConfig
+enable_compile_cache()
+
+from opendlv_perception_vision_orbslam2_jax.models import slam as slam_mod
+from opendlv_perception_vision_orbslam2_jax.models import local_mapping as lm
+from opendlv_perception_vision_orbslam2_jax.optim.ba_grid import bundle_adjust_grid
+from opendlv_perception_vision_orbslam2_jax.utils import synthetic
+from opendlv_perception_vision_orbslam2_jax.utils.config import SystemConfig
 
 cfg = SystemConfig()
 print("backend:", jax.default_backend(), flush=True)
@@ -100,7 +99,7 @@ bench("15x landmark gather+einsums", lambda: landmark_pass(Jp, Jl, r))
 
 @jax.jit
 def grid_terms_pass():
-    from opendlv_perception_vision_orbslam2_tpu.optim.ba_grid import _grid_terms
+    from opendlv_perception_vision_orbslam2_jax.optim.ba_grid import _grid_terms
     def body(c, _):
         r, Jp, Jl, st, bh = _grid_terms(
             ext.prob.T_all, ext.prob.pts, ext.prob,

@@ -5,15 +5,15 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from opendlv_perception_vision_orbslam2_tpu.models import slam as slam_mod
-from opendlv_perception_vision_orbslam2_tpu.models import local_mapping as lm
-from opendlv_perception_vision_orbslam2_tpu.models import map_state as ms
-from opendlv_perception_vision_orbslam2_tpu.models.triangulation import (
+from opendlv_perception_vision_orbslam2_jax.models import slam as slam_mod
+from opendlv_perception_vision_orbslam2_jax.models import local_mapping as lm
+from opendlv_perception_vision_orbslam2_jax.models import map_state as ms
+from opendlv_perception_vision_orbslam2_jax.models.triangulation import (
     create_new_map_points,
 )
-from opendlv_perception_vision_orbslam2_tpu.optim.ba import bundle_adjust
-from opendlv_perception_vision_orbslam2_tpu.utils import synthetic
-from opendlv_perception_vision_orbslam2_tpu.utils.config import SystemConfig
+from opendlv_perception_vision_orbslam2_jax.optim.ba import bundle_adjust
+from opendlv_perception_vision_orbslam2_jax.utils import synthetic
+from opendlv_perception_vision_orbslam2_jax.utils.config import SystemConfig
 
 cfg = SystemConfig()
 print("backend:", jax.default_backend(),

@@ -10,21 +10,20 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-try:
-    jax.config.update("jax_compilation_cache_dir",
-                      "/root/.orbslam2_tpu_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-except Exception:
-    pass
+from opendlv_perception_vision_orbslam2_jax.utils.compile_cache import (  # noqa: E402
+    enable_compile_cache,
+)
 
-from opendlv_perception_vision_orbslam2_tpu.models import slam as slam_mod
-from opendlv_perception_vision_orbslam2_tpu.models.slam import (
+enable_compile_cache()
+
+from opendlv_perception_vision_orbslam2_jax.models import slam as slam_mod
+from opendlv_perception_vision_orbslam2_jax.models.slam import (
     _local_point_window, PL_TRACK)
-from opendlv_perception_vision_orbslam2_tpu.ops import lie
-from opendlv_perception_vision_orbslam2_tpu.ops.hamming import (
+from opendlv_perception_vision_orbslam2_jax.ops import lie
+from opendlv_perception_vision_orbslam2_jax.ops.hamming import (
     MAX_DIST, TH_HIGH, hamming_matrix)
-from opendlv_perception_vision_orbslam2_tpu.utils import synthetic
-from opendlv_perception_vision_orbslam2_tpu.utils.config import SystemConfig
+from opendlv_perception_vision_orbslam2_jax.utils import synthetic
+from opendlv_perception_vision_orbslam2_jax.utils.config import SystemConfig
 
 cfg = SystemConfig()
 n = int(sys.argv[1]) if len(sys.argv) > 1 else 14

@@ -4,16 +4,15 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-try:
-    jax.config.update("jax_compilation_cache_dir",
-                      "/root/.orbslam2_tpu_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-except Exception:
-    pass
+from opendlv_perception_vision_orbslam2_jax.utils.compile_cache import (  # noqa: E402
+    enable_compile_cache,
+)
 
-from opendlv_perception_vision_orbslam2_tpu.optim.ba_grid import (
+enable_compile_cache()
+
+from opendlv_perception_vision_orbslam2_jax.optim.ba_grid import (
     _obs_terms, GridBAProblem, _grid_chi2, CHI2_MONO, CHI2_STEREO)
-from opendlv_perception_vision_orbslam2_tpu.optim.ba import _inv3x3
+from opendlv_perception_vision_orbslam2_jax.optim.ba import _inv3x3
 
 print("backend:", jax.default_backend(), flush=True)
 

@@ -1,4 +1,4 @@
-"""TPU micro-timing of the round-4 stage programs with pass toggles.
+"""Device micro-timing of the round-4 stage programs with pass toggles.
 
 Builds a realistic mid-run MapState by running the pipeline for 16 frames,
 then times: process_stereo, track_frame_with_map, insert_stage, and
@@ -12,17 +12,16 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-try:
-    jax.config.update("jax_compilation_cache_dir",
-                      "/root/.orbslam2_tpu_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-except Exception:
-    pass
+from opendlv_perception_vision_orbslam2_jax.utils.compile_cache import (  # noqa: E402
+    enable_compile_cache,
+)
 
-from opendlv_perception_vision_orbslam2_tpu.models import slam as slam_mod
-from opendlv_perception_vision_orbslam2_tpu.models.frontend import process_stereo
-from opendlv_perception_vision_orbslam2_tpu.utils import synthetic
-from opendlv_perception_vision_orbslam2_tpu.utils.config import SystemConfig
+enable_compile_cache()
+
+from opendlv_perception_vision_orbslam2_jax.models import slam as slam_mod
+from opendlv_perception_vision_orbslam2_jax.models.frontend import process_stereo
+from opendlv_perception_vision_orbslam2_jax.utils import synthetic
+from opendlv_perception_vision_orbslam2_jax.utils.config import SystemConfig
 
 cfg = SystemConfig()
 print("backend:", jax.default_backend(), flush=True)
@@ -78,14 +77,14 @@ for flags in (
           lambda f=flags: slam_mod.mapping_stage(m, slot, cfg, **f), reps=4)
 
 # isolated passes
-from opendlv_perception_vision_orbslam2_tpu.models.triangulation import (
+from opendlv_perception_vision_orbslam2_jax.models.triangulation import (
     create_new_map_points,
 )
-from opendlv_perception_vision_orbslam2_tpu.models.fusion import run_fusion
-from opendlv_perception_vision_orbslam2_tpu.models.local_mapping import (
+from opendlv_perception_vision_orbslam2_jax.models.fusion import run_fusion
+from opendlv_perception_vision_orbslam2_jax.models.local_mapping import (
     local_mapping_step,
 )
-from opendlv_perception_vision_orbslam2_tpu.models.map_state import (
+from opendlv_perception_vision_orbslam2_jax.models.map_state import (
     point_observation_counts,
     recompute_covisibility,
 )

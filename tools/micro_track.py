@@ -1,6 +1,7 @@
 """Micro-ablation of the tracking stage (motion_model_step internals) at the
 bench operating point.  Checksum outputs; one process, queued timings."""
 
+import os
 import sys
 import time
 
@@ -8,20 +9,20 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from opendlv_perception_vision_orbslam2_tpu.models import tracking as tr
-from opendlv_perception_vision_orbslam2_tpu.models.frontend import process_stereo
-from opendlv_perception_vision_orbslam2_tpu.ops import matching
-from opendlv_perception_vision_orbslam2_tpu.ops.hamming import hamming_matrix
-from opendlv_perception_vision_orbslam2_tpu.optim.pnp import pnp_ransac
-from opendlv_perception_vision_orbslam2_tpu.optim.pose_opt import (
+from opendlv_perception_vision_orbslam2_jax.models import tracking as tr
+from opendlv_perception_vision_orbslam2_jax.models.frontend import process_stereo
+from opendlv_perception_vision_orbslam2_jax.ops import matching
+from opendlv_perception_vision_orbslam2_jax.ops.hamming import hamming_matrix
+from opendlv_perception_vision_orbslam2_jax.optim.pnp import pnp_ransac
+from opendlv_perception_vision_orbslam2_jax.optim.pose_opt import (
     PoseObs, pose_optimize, robust_pose_estimate)
-from opendlv_perception_vision_orbslam2_tpu.models.frame import (
+from opendlv_perception_vision_orbslam2_jax.models.frame import (
     features_scale_sigma2)
-from opendlv_perception_vision_orbslam2_tpu.ops import lie
-from opendlv_perception_vision_orbslam2_tpu.utils import synthetic
-from opendlv_perception_vision_orbslam2_tpu.utils.config import SystemConfig
+from opendlv_perception_vision_orbslam2_jax.ops import lie
+from opendlv_perception_vision_orbslam2_jax.utils import synthetic
+from opendlv_perception_vision_orbslam2_jax.utils.config import SystemConfig
 
 
 def timeit(name, fn, *args, reps=40):

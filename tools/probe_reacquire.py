@@ -8,26 +8,26 @@ TH_HIGH, ratio, duplicates)?
 import os
 import sys
 
-if os.environ.get("USE_TPU") != "1":
+if os.environ.get("USE_GPU") != "1":
     os.environ["JAX_PLATFORMS"] = "cpu"
 
 import numpy as np
 import jax.numpy as jnp
 
-from opendlv_perception_vision_orbslam2_tpu.models.slam import (
+from opendlv_perception_vision_orbslam2_jax.models.slam import (
     StereoSlam, _local_point_window, TH_HIGH,
 )
-from opendlv_perception_vision_orbslam2_tpu.ops import lie
-from opendlv_perception_vision_orbslam2_tpu.ops.hamming import hamming_matrix
-from opendlv_perception_vision_orbslam2_tpu.utils import synthetic
-from opendlv_perception_vision_orbslam2_tpu.utils.config import (
+from opendlv_perception_vision_orbslam2_jax.ops import lie
+from opendlv_perception_vision_orbslam2_jax.ops.hamming import hamming_matrix
+from opendlv_perception_vision_orbslam2_jax.utils import synthetic
+from opendlv_perception_vision_orbslam2_jax.utils.config import (
     CameraConfig, OrbConfig, SystemConfig,
 )
 
 
 def main():
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 28
-    if os.environ.get("USE_TPU") == "1":
+    if os.environ.get("USE_GPU") == "1":
         cfg = SystemConfig(initial_keyframes=64, initial_map_points=8192)
         lefts, rights, gt, _ = synthetic.render_loop_sequence(
             cfg, n_frames=n + 1, n_points=3200, seed=1, radius=35.0,
@@ -41,7 +41,7 @@ def main():
                                 bf=160.0, width=512, height=256, fps=10.0),
             orb=OrbConfig(n_features=600, max_keypoints=1024, n_levels=4),
             tracking=__import__(
-                "opendlv_perception_vision_orbslam2_tpu.utils.config",
+                "opendlv_perception_vision_orbslam2_jax.utils.config",
                 fromlist=["TrackingConfig"],
             ).TrackingConfig(max_frames=5),
             max_keyframes=64,
@@ -152,13 +152,13 @@ def main():
 def probe_pose_opt(slam, cfg):
     """After a manual local search, how many bindings survive pose-opt?"""
     import jax
-    from opendlv_perception_vision_orbslam2_tpu.models.slam import (
+    from opendlv_perception_vision_orbslam2_jax.models.slam import (
         _local_point_window, _search_local_points,
     )
-    from opendlv_perception_vision_orbslam2_tpu.models.frame import (
+    from opendlv_perception_vision_orbslam2_jax.models.frame import (
         features_scale_sigma2,
     )
-    from opendlv_perception_vision_orbslam2_tpu.optim.pose_opt import (
+    from opendlv_perception_vision_orbslam2_jax.optim.pose_opt import (
         PoseObs, pose_optimize,
     )
     m = slam.map

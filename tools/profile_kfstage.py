@@ -8,9 +8,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from opendlv_perception_vision_orbslam2_tpu.models import slam as slam_mod
-from opendlv_perception_vision_orbslam2_tpu.utils import synthetic
-from opendlv_perception_vision_orbslam2_tpu.utils.config import SystemConfig
+from opendlv_perception_vision_orbslam2_jax.models import slam as slam_mod
+from opendlv_perception_vision_orbslam2_jax.utils import synthetic
+from opendlv_perception_vision_orbslam2_jax.utils.config import SystemConfig
 
 cfg = SystemConfig()
 print("backend:", jax.default_backend(), "feat cap:", cfg.orb.max_keypoints)
@@ -41,10 +41,10 @@ orig_insert = slam_mod.StereoSlam._insert_keyframe
 
 
 def instrumented_insert(self, frame, bindings):
-    from opendlv_perception_vision_orbslam2_tpu.models.map_state import (
+    from opendlv_perception_vision_orbslam2_jax.models.map_state import (
         evict_oldest_if_full,
     )
-    from opendlv_perception_vision_orbslam2_tpu.models.triangulation import (
+    from opendlv_perception_vision_orbslam2_jax.models.triangulation import (
         create_new_map_points,
     )
 

@@ -2,9 +2,9 @@
 import numpy as np
 import jax.numpy as jnp
 
-import opendlv_perception_vision_orbslam2_tpu.models.slam as slam_mod
-from opendlv_perception_vision_orbslam2_tpu.utils import synthetic
-from opendlv_perception_vision_orbslam2_tpu.utils.config import (
+import opendlv_perception_vision_orbslam2_jax.models.slam as slam_mod
+from opendlv_perception_vision_orbslam2_jax.utils import synthetic
+from opendlv_perception_vision_orbslam2_jax.utils.config import (
     CameraConfig, OrbConfig, SystemConfig, TrackingConfig,
 )
 
